@@ -2,7 +2,7 @@
 // libjpeg-turbo / jpeg2dct / OpenCV preprocessing stack (reference
 // data/cvfunctional.py:21-74, cvtransforms.py:56-208).
 //
-// The TPU framework normally runs the codec on-device (data/codec.py); this
+// The framework normally runs the codec on-device (data/codec.py); this
 // native path exists for the reference's deployment shape — CPU-side
 // preprocessing pipelines that overlap with device compute — and for hosts
 // feeding multiple accelerators.  Numerics mirror data/codec.py exactly
@@ -13,7 +13,7 @@
 // biased h2v2 downsample, islow FDCT, round-half-away quantization by 8).
 //
 // Build:  make -C native        (produces libdctcodec.so)
-// Python binding: dct_cryptonets_tpu/data/native.py (ctypes).
+// Python binding: dct_cryptonets/data/native.py (ctypes).
 
 #include <cmath>
 #include <cstdint>

@@ -33,7 +33,7 @@ case "$MODEL" in
     ;;
 esac
 
-exec python -m dct_cryptonets_tpu.homomorphic_eval \
+exec python -m dct_cryptonets.homomorphic_eval \
   --dataset "$DATASET" \
   --dataset_path "$DATASET_PATH" \
   --model "$MODEL" \

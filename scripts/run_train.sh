@@ -35,7 +35,7 @@ case "$MODEL" in
     ;;
 esac
 
-exec python -m dct_cryptonets_tpu.train \
+exec python -m dct_cryptonets.train \
   --dataset "$DATASET" \
   --dataset_path "$DATASET_PATH" \
   --save_path "$SAVE_PATH" \

@@ -28,7 +28,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main():
     coord, n_proc, pid, outdir = (sys.argv[1], int(sys.argv[2]),
                                   int(sys.argv[3]), sys.argv[4])
-    from dct_cryptonets_tpu.parallel import (host_chip_mesh, initialize,
+    from dct_cryptonets.parallel import (host_chip_mesh, initialize,
                                              local_batch_to_global,
                                              replicate)
     initialize(coordinator_address=coord, num_processes=n_proc,
@@ -40,9 +40,9 @@ def main():
 
     # ---- one sharded train step (gradients all-reduced across hosts)
     import argparse
-    from dct_cryptonets_tpu.data import CodecConfig
-    from dct_cryptonets_tpu.models import build_spec, init_model
-    from dct_cryptonets_tpu.train import make_optimizer, make_steps
+    from dct_cryptonets.data import CodecConfig
+    from dct_cryptonets.models import build_spec, init_model
+    from dct_cryptonets.train import make_optimizer, make_steps
 
     cfg = argparse.Namespace(optimizer="adam", weight_decay=1e-5,
                              momentum=0.9, grad_clip_value=None,
@@ -83,10 +83,10 @@ def main():
     # ---- one sharded encrypted batch: ciphertexts shard over the global
     # mesh, server keys replicate (the one-time broadcast), results decrypt
     # correctly on every host
-    from dct_cryptonets_tpu.fhe import keys as K
-    from dct_cryptonets_tpu.fhe import pbs as PB
-    from dct_cryptonets_tpu.fhe import torus as T
-    from dct_cryptonets_tpu.fhe.params import TEST_PARAMS
+    from dct_cryptonets.fhe import keys as K
+    from dct_cryptonets.fhe import pbs as PB
+    from dct_cryptonets.fhe import torus as T
+    from dct_cryptonets.fhe.params import TEST_PARAMS
 
     ck = K.keygen(TEST_PARAMS, seed=0)
     sk = K.make_server_keys(ck, seed=1)

@@ -3,7 +3,7 @@ import numpy as np
 
 
 def test_train_one_epoch(tmp_path, capsys):
-    from dct_cryptonets_tpu.train import main
+    from dct_cryptonets.train import main
     main(["--dataset", "synthetic", "--dct_status", "--model", "ResNet20qat",
           "--channels", "24", "--filter_size", "4", "--image_size_dct", "16",
           "--stop_epoch", "1", "--batch_size", "64", "--test_batch_size", "50",
@@ -18,7 +18,7 @@ def test_train_one_epoch(tmp_path, capsys):
 
 
 def test_homomorphic_eval_simulate(capsys):
-    from dct_cryptonets_tpu.homomorphic_eval import main
+    from dct_cryptonets.homomorphic_eval import main
     main(["--dataset", "synthetic", "--dct_status", "--model", "ResNet20qat",
           "--channels", "24", "--filter_size", "4", "--image_size_dct", "16",
           "--test_subset", "8", "--fhe_mode", "simulate",
@@ -32,7 +32,7 @@ def test_homomorphic_eval_simulate(capsys):
 def test_homomorphic_eval_ptq_simulate(capsys):
     """Non-QAT model name routes through the PTQ compile path (reference
     homomorphic_eval.py:95-98)."""
-    from dct_cryptonets_tpu.homomorphic_eval import main
+    from dct_cryptonets.homomorphic_eval import main
     main(["--dataset", "synthetic", "--dct_status", "--model", "ResNet20",
           "--channels", "24", "--filter_size", "4", "--image_size_dct", "16",
           "--test_subset", "4", "--fhe_mode", "simulate", "--n_bits", "5",
@@ -47,7 +47,7 @@ def test_train_rgb_with_aug(tmp_path, capsys):
     """RGB (non-DCT) training path with --train_aug: RandomResizedCrop +
     jitter + hflip wired into the jitted train step (reference
     datamgr.py:69-80); eval path uses Resize 1.15x + CenterCrop."""
-    from dct_cryptonets_tpu.train import main
+    from dct_cryptonets.train import main
     main(["--dataset", "synthetic", "--model", "ResNet20qat",
           "--image_size", "32", "--train_aug",
           "--stop_epoch", "1", "--batch_size", "64", "--test_batch_size",

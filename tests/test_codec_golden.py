@@ -27,10 +27,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dct_cryptonets_tpu.data.codec import (CodecConfig, dct_from_pixels,
+from dct_cryptonets.data.codec import (CodecConfig, dct_from_pixels,
                                            dct_ingest, resize_linear_u8_cv,
                                            rgb_to_ycrcb_cv)
-from dct_cryptonets_tpu.ops.dct import blockwise_dct2
+from dct_cryptonets.ops.dct import blockwise_dct2
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "codec_fs4.npz")
 GOLDEN8 = os.path.join(os.path.dirname(__file__), "golden", "codec_fs8.npz")
@@ -87,7 +87,7 @@ def test_fs8_raw_coefficients_bit_exact(golden8):
     bitstream parser in tools/jpeg_oracle.py — the reference's
     TurboJPEG-quality-100 + jpeg2dct path, cvfunctional.py:21-26,
     including its TJPF_BGR-on-RGB channel-swap quirk)."""
-    from dct_cryptonets_tpu.ops.jpegdct import jpeg_q100_coefficients
+    from dct_cryptonets.ops.jpegdct import jpeg_q100_coefficients
     cy, ccb, ccr = jpeg_q100_coefficients(jnp.asarray(golden8["cropped"]))
     np.testing.assert_array_equal(np.asarray(cy), golden8["dct_y"])
     np.testing.assert_array_equal(np.asarray(ccb), golden8["dct_cb"])

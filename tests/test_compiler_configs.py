@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dct_cryptonets_tpu.models import (build_spec, calibrate_scales, forward,
+from dct_cryptonets.models import (build_spec, calibrate_scales, forward,
                                        init_model)
-from dct_cryptonets_tpu.fhe.compiler import lower
-from dct_cryptonets_tpu.fhe.circuit import Conv, Tlu, simulate
-from dct_cryptonets_tpu.fhe.params import params_for_precision
+from dct_cryptonets.fhe.compiler import lower
+from dct_cryptonets.fhe.circuit import Conv, Tlu, simulate
+from dct_cryptonets.fhe.params import params_for_precision
 
 
 def _prep(spec, B=4):
@@ -69,7 +69,7 @@ def test_resnet18_fs8_end_to_end_simulate():
     kernel — so the runnable 24-channel 56^2 ResNet-18 config stands in;
     see models/topology.py.)"""
     import os
-    from dct_cryptonets_tpu.data.codec import CodecConfig, dct_ingest
+    from dct_cryptonets.data.codec import CodecConfig, dct_ingest
     z = np.load(os.path.join(os.path.dirname(__file__), "golden",
                              "codec_fs8.npz"))
     cfg = CodecConfig(channels=24, filter_size=8, image_size_dct=56)

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from dct_cryptonets_tpu.data import pipeline
+from dct_cryptonets.data import pipeline
 
 
 def test_digits_loader_real_data():
@@ -14,6 +14,20 @@ def test_digits_loader_real_data():
     # split is seeded (rs=42 parity with the reference's subset semantics)
     tr2 = pipeline.get_dataset("digits", None, True, image_size=32)
     np.testing.assert_array_equal(tr.labels, tr2.labels)
+
+
+@pytest.mark.parametrize("n,test_size,seed,train,test", [
+    (20, 0.25, 42, [5, 11, 3, 18, 16, 13, 2, 9, 19, 4, 12, 7, 10, 14, 6],
+     [0, 17, 15, 1, 8]),
+    (20, 3, 7, [5, 11, 0, 18, 6, 13, 19, 10, 14, 8, 16, 9, 12, 7, 3, 4, 15],
+     [1, 17, 2]),
+])
+def test_train_val_split_matches_sklearn(n, test_size, seed, train, test):
+    """Indices as sklearn's train_test_split(np.arange(n), ...) gives them
+    (expected values recorded from scikit-learn 1.9)."""
+    tr, te = pipeline.train_val_split(n, test_size, random_state=seed)
+    np.testing.assert_array_equal(tr, train)
+    np.testing.assert_array_equal(te, test)
 
 
 def test_folder_dataset_lazy(tmp_path):

@@ -11,12 +11,12 @@ import scipy.fft
 import jax
 import jax.numpy as jnp
 
-from dct_cryptonets_tpu.ops.dct import blockwise_dct2, blockwise_idct2, dct_basis
-from dct_cryptonets_tpu.data.codec import (
+from dct_cryptonets.ops.dct import blockwise_dct2, blockwise_idct2, dct_basis
+from dct_cryptonets.data.codec import (
     CodecConfig, dct_ingest, dct_ingest_train, dct_from_pixels,
     rgb_to_ycrcb_cv,
 )
-from dct_cryptonets_tpu.data.tables import subset_indices, normalization_stats
+from dct_cryptonets.data.tables import subset_indices, normalization_stats
 
 
 def ref_matrix2dct(matrix, size):

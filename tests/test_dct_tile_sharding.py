@@ -11,8 +11,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dct_cryptonets_tpu.data import CodecConfig, dct_ingest, dct_ingest_sharded
-from dct_cryptonets_tpu.parallel import data_mesh
+from dct_cryptonets.data import CodecConfig, dct_ingest, dct_ingest_sharded
+from dct_cryptonets.parallel import data_mesh
 
 
 def _images(b, size, seed=0):

@@ -3,10 +3,10 @@ ciphertext stands in for race detection in an SPMD framework)."""
 import numpy as np
 import pytest
 
-from dct_cryptonets_tpu.fhe import torus as T
-from dct_cryptonets_tpu.fhe.keys import (Csprng, encrypt_lwe, keygen,
+from dct_cryptonets.fhe import torus as T
+from dct_cryptonets.fhe.keys import (Csprng, encrypt_lwe, keygen,
                                          make_server_keys)
-from dct_cryptonets_tpu.fhe.params import TEST_PARAMS
+from dct_cryptonets.fhe.params import TEST_PARAMS
 
 
 def test_csprng_deterministic_and_seed_sensitive():
@@ -55,8 +55,8 @@ def test_same_seed_same_ciphertext():
 def test_module_encrypt_seeded_determinism():
     """CompiledModule.encrypt with an explicit Csprng is reproducible;
     without one, masks are fresh entropy (still decrypt correctly)."""
-    from dct_cryptonets_tpu.fhe.circuit import Circuit, Output, QuantIn
-    from dct_cryptonets_tpu.fhe.runtime import CompiledModule
+    from dct_cryptonets.fhe.circuit import Circuit, Output, QuantIn
+    from dct_cryptonets.fhe.runtime import CompiledModule
 
     circ = Circuit([QuantIn(0.5, 4, 6, "x0"), Output("x0", 0.5)],
                    (1, 1, 4), {"x0": 6}, {"shapes": {"x0": (1, 1, 4)}})
@@ -79,7 +79,7 @@ def test_lazy_manifest(tmp_path):
     """ManifestDataset decodes images per batch, not at construction."""
     import json
     from PIL import Image
-    from dct_cryptonets_tpu.data.pipeline import load_json_manifest
+    from dct_cryptonets.data.pipeline import load_json_manifest
 
     names, labels = [], []
     for i in range(4):

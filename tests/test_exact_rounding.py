@@ -12,12 +12,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dct_cryptonets_tpu.fhe import torus as T
-from dct_cryptonets_tpu.fhe.keys import (encrypt_lwe, decrypt_lwe, keygen,
+from dct_cryptonets.fhe import torus as T
+from dct_cryptonets.fhe.keys import (encrypt_lwe, decrypt_lwe, keygen,
                                          make_aux_server_keys)
-from dct_cryptonets_tpu.fhe.params import (TEST_PARAMS,
+from dct_cryptonets.fhe.params import (TEST_PARAMS,
                                            default_exact_rounding)
-from dct_cryptonets_tpu.fhe.pbs import clear_low_bits, preprocess_aux_keys
+from dct_cryptonets.fhe.pbs import clear_low_bits, preprocess_aux_keys
 
 U64 = np.uint64
 
@@ -86,10 +86,10 @@ def test_execute_matches_simulate_both_rounding_methods():
     simulator at test noise (approximate only because noise << LSB here;
     at production noise only exact keeps the bit-exact contract)."""
     import jax
-    from dct_cryptonets_tpu.models import init_model, calibrate_scales
-    from dct_cryptonets_tpu.models.resnet import ModelSpec, forward
-    from dct_cryptonets_tpu.models.topology import StemSpec
-    from dct_cryptonets_tpu.fhe.runtime import compile_qat_model
+    from dct_cryptonets.models import init_model, calibrate_scales
+    from dct_cryptonets.models.resnet import ModelSpec, forward
+    from dct_cryptonets.models.topology import StemSpec
+    from dct_cryptonets.fhe.runtime import compile_qat_model
 
     tiny = ModelSpec(
         name="tinyqat", block_counts=(1,), widths=(4,), in_channels=3,
@@ -127,9 +127,9 @@ def test_audit_partial_clearing_centering_order():
     < 2^(keep-1): the main PBS then reads one window low, deterministically.
     On a relu-ish table such misreads can land on plateaus and hide; the
     identity table turns every misread into an output mismatch."""
-    from dct_cryptonets_tpu.fhe.circuit import (Circuit, Output, QuantIn,
+    from dct_cryptonets.fhe.circuit import (Circuit, Output, QuantIn,
                                                 Tlu, TluSpec)
-    from dct_cryptonets_tpu.fhe.runtime import CompiledModule
+    from dct_cryptonets.fhe.runtime import CompiledModule
 
     r, shift = 4, 3
     n_in = r + shift
@@ -169,10 +169,10 @@ def test_execute_matches_simulate_audit_partial_clearing():
     deterministically read one window low on a 2^(keep-1)/2^shift fraction
     of accumulator values (ADVICE r3 high)."""
     import jax
-    from dct_cryptonets_tpu.models import init_model, calibrate_scales
-    from dct_cryptonets_tpu.models.resnet import ModelSpec, forward
-    from dct_cryptonets_tpu.models.topology import StemSpec
-    from dct_cryptonets_tpu.fhe.runtime import compile_qat_model
+    from dct_cryptonets.models import init_model, calibrate_scales
+    from dct_cryptonets.models.resnet import ModelSpec, forward
+    from dct_cryptonets.models.topology import StemSpec
+    from dct_cryptonets.fhe.runtime import compile_qat_model
 
     tiny = ModelSpec(
         name="tinyqat", block_counts=(1,), widths=(4,), in_channels=3,

@@ -4,18 +4,19 @@ and the cross skip.
 The exact-rounding extraction bootstraps dominate encrypted-inference cost
 (~3.8 aux PBS per main PBS on the flagship circuit), so they run on a small
 GLWE geometry (params.EXTRACT_PRESETS: k=4/N=256 or k=2/N=512 at the same
-k*N security as k=1/N=1024).  These tests pin the k>1 correctness of every
-engine, the cross-key extraction pipeline, and the audit-gated cross skip
+k*N security as k=1/N=1024).  These tests pin the k>1 correctness of the
+blind rotate, the cross-key extraction pipeline, and the audit-gated cross skip
 (pbs.py ``cross``) the throughput mode relies on.
 """
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dct_cryptonets_tpu.fhe import keys as K
-from dct_cryptonets_tpu.fhe import pbs as P
-from dct_cryptonets_tpu.fhe import torus as T
-from dct_cryptonets_tpu.fhe.params import (EXTRACT_PRESETS, NoiseModel,
+from dct_cryptonets.fhe import keys as K
+from dct_cryptonets.fhe import pbs as P
+from dct_cryptonets.fhe import torus as T
+from pbs_reference import blind_rotate_ref
+from dct_cryptonets.fhe.params import (EXTRACT_PRESETS, NoiseModel,
                                            ExactRoundingConfig, TEST_PARAMS,
                                            TEST_PARAMS_K2,
                                            default_exact_rounding,
@@ -32,7 +33,7 @@ def material_k2():
 
 
 def test_full_pbs_k2_decrypts_table(material_k2):
-    """PBS correctness with two GLWE mask polynomials (conv engine)."""
+    """PBS correctness with two GLWE mask polynomials."""
     ck, dsk = material_k2
     par = TEST_PARAMS_K2
     rng = np.random.default_rng(31)
@@ -41,8 +42,7 @@ def test_full_pbs_k2_decrypts_table(material_k2):
     table = rng.integers(-4, 4, (M, 2 ** bits)).astype(np.int32)
     ct = K.encrypt_lwe(ck, msgs.astype(U64) << U64(64 - bits - 1), rng,
                        key=ck.big_lwe_key, noise_log2=par.glwe_noise_log2)
-    out = P.bootstrap(T.from_u64(ct), jnp.asarray(table), dsk, par, 60,
-                      engine="conv")
+    out = P.bootstrap(T.from_u64(ct), jnp.asarray(table), dsk, par, 60)
     phase = K.decrypt_lwe(ck, T.to_u64(out), key=ck.big_lwe_key)
     got = np.round(phase.astype(np.int64).astype(np.float64) / 2.0 ** 60)
     np.testing.assert_array_equal(got.astype(np.int64),
@@ -51,21 +51,22 @@ def test_full_pbs_k2_decrypts_table(material_k2):
 
 @pytest.mark.parametrize("drop,cross", [(0, 0), (2, 0), (0, 1), (2, 1)])
 def test_engines_bit_exact_k2(material_k2, drop, cross):
-    """conv / s2d / fused engines agree bit-for-bit at k=2 for every
-    (drop_limbs, cross) combination."""
+    """The blind rotate agrees bit-for-bit at k=2 with the plain numpy
+    reference (tests/pbs_reference.py) for every (drop_limbs, cross)
+    combination."""
     ck, dsk = material_k2
     par = TEST_PARAMS_K2
     rng = np.random.default_rng(41 + drop + 10 * cross)
-    M, bits = 8, 3
-    msgs = rng.integers(0, 2 ** bits, M)
-    ct = K.encrypt_lwe(ck, msgs.astype(U64) << U64(64 - bits - 1), rng,
-                       key=ck.big_lwe_key, noise_log2=par.glwe_noise_log2)
-    tables = jnp.asarray(rng.integers(-4, 4, (M, 2 ** bits)), jnp.int32)
-    outs = [P.bootstrap(T.from_u64(ct), tables, dsk, par, 60,
-                        drop_limbs=drop, cross=cross, engine=e)
-            for e in ("conv", "s2d", "fused")]
-    for o in outs[1:]:
-        np.testing.assert_array_equal(T.to_u64(o), T.to_u64(outs[0]))
+    M = 3
+    test = rng.integers(0, 2 ** 63, (M, par.poly_size), dtype=np.uint64)
+    ct_a = rng.integers(0, 2 * par.poly_size, (M, par.lwe_dim))
+    ct_b = rng.integers(0, 2 * par.poly_size, M)
+    got = P.blind_rotate(T.from_u64(test), jnp.asarray(ct_a, jnp.uint32),
+                         jnp.asarray(ct_b, jnp.uint32), dsk.bsk_bytes, par,
+                         drop, cross)
+    want = blind_rotate_ref(test, ct_a, ct_b, np.asarray(dsk.bsk_bytes),
+                            par, drop, cross)
+    np.testing.assert_array_equal(T.to_u64(got), want)
 
 
 def test_cross_skip_correct_at_test_noise(material_k2):
@@ -80,7 +81,7 @@ def test_cross_skip_correct_at_test_noise(material_k2):
     ct = K.encrypt_lwe(ck, msgs.astype(U64) << U64(64 - bits - 1), rng,
                        key=ck.big_lwe_key, noise_log2=par.glwe_noise_log2)
     out = P.bootstrap(T.from_u64(ct), jnp.asarray(table), dsk, par, 60,
-                      drop_limbs=0, cross=1, engine="conv")
+                      drop_limbs=0, cross=1)
     phase = K.decrypt_lwe(ck, T.to_u64(out), key=ck.big_lwe_key)
     got = np.round(phase.astype(np.int64).astype(np.float64) / 2.0 ** 60)
     np.testing.assert_array_equal(got.astype(np.int64), msgs)
@@ -142,9 +143,9 @@ def test_extract_presets_feasible(name):
 def test_audit_uses_knob_ladder():
     """The audit hands out (drop, cross) pairs and caps p_error on a
     synthetic two-TLU circuit with a heavy conv between them."""
-    from dct_cryptonets_tpu.fhe.circuit import (Circuit, Conv, Output,
+    from dct_cryptonets.fhe.circuit import (Circuit, Conv, Output,
                                                 QuantIn, Tlu, TluSpec)
-    from dct_cryptonets_tpu.fhe.noise_audit import audit_circuit
+    from dct_cryptonets.fhe.noise_audit import audit_circuit
 
     par = params_for_precision(6)
     rng = np.random.default_rng(5)
@@ -201,9 +202,9 @@ def test_clear_low_bits_ks_drop_still_correct():
 def test_audit_reports_ks_drops():
     """The audit chooses truncated-KSK limb drops for the extraction hops
     and they respect the variance caps of NoiseModel.var_ks_drop."""
-    from dct_cryptonets_tpu.fhe.circuit import (Circuit, Conv, Output,
+    from dct_cryptonets.fhe.circuit import (Circuit, Conv, Output,
                                                 QuantIn, Tlu, TluSpec)
-    from dct_cryptonets_tpu.fhe.noise_audit import audit_circuit
+    from dct_cryptonets.fhe.noise_audit import audit_circuit
 
     par = params_for_precision(6)
     rng = np.random.default_rng(5)

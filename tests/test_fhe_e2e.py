@@ -1,6 +1,6 @@
 """End-to-end FHE tests: compile tiny QAT model -> simulate == execute.
 
-This is the framework's core contract (BASELINE.md north star): decrypted
+This is the framework's core contract: decrypted
 logits from the encrypted runtime must match the integer simulator
 bit-exactly (the simulator in turn stands in for Concrete's
 ``fhe='simulate'`` oracle, reference homomorphic_eval.py:333-347).
@@ -10,14 +10,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dct_cryptonets_tpu.models import init_model
-from dct_cryptonets_tpu.models.resnet import ModelSpec, forward
-from dct_cryptonets_tpu.models.topology import StemSpec
-from dct_cryptonets_tpu.fhe import torus as T
-from dct_cryptonets_tpu.fhe.params import TEST_PARAMS
-from dct_cryptonets_tpu.fhe.compiler import lower
-from dct_cryptonets_tpu.fhe.circuit import Tlu, simulate
-from dct_cryptonets_tpu.fhe.runtime import compile_qat_model
+from dct_cryptonets.models import init_model
+from dct_cryptonets.models.resnet import ModelSpec, forward
+from dct_cryptonets.models.topology import StemSpec
+from dct_cryptonets.fhe import torus as T
+from dct_cryptonets.fhe.params import TEST_PARAMS
+from dct_cryptonets.fhe.compiler import lower
+from dct_cryptonets.fhe.circuit import Tlu, simulate
+from dct_cryptonets.fhe.runtime import compile_qat_model
 
 
 TINY = ModelSpec(
@@ -29,7 +29,7 @@ TINY = ModelSpec(
 
 @pytest.fixture(scope="module")
 def tiny_model():
-    from dct_cryptonets_tpu.models import calibrate_scales
+    from dct_cryptonets.models import calibrate_scales
     params, state = init_model(jax.random.key(0), TINY)
     # run a couple of train-mode forwards so BN state is non-trivial
     x = jax.random.normal(jax.random.key(1), (8, 4, 4, 3))
@@ -58,7 +58,7 @@ def test_lower_structure_fused(tiny_model):
     """residual_mode='fused' (default): the quant_out requant TLU is elided
     — the raw conv2 accumulator feeds the residual add through per-channel
     multipliers and relu2's table absorbs scale + bias."""
-    from dct_cryptonets_tpu.fhe.circuit import AddScaledPC
+    from dct_cryptonets.fhe.circuit import AddScaledPC
     params, state = tiny_model
     circ = lower(params, state, TINY, n_bits=3, rounding_threshold_bits=3,
                  calib_absmax=2.0)
@@ -103,7 +103,7 @@ def test_fused_mode_tracks_qat_forward(tiny_model):
     # a random 3-bit toy net quantizes to a handful of levels, so +-1-step
     # flips near rounding boundaries are common — correlation is a sanity
     # floor here; end-to-end accuracy parity of fused vs requant is
-    # validated on the trained digits model (ROUND3.md experiment log)
+    # validated on the trained digits model (tools/digits_fused_parity.py)
     assert np.corrcoef(a, b)[0, 1] > 0.6
 
 
@@ -141,8 +141,8 @@ def test_execute_matches_simulate_bit_exact(tiny_model):
 
 def test_realized_slip_audit_zero_under_bit_exact_contract(tiny_model):
     """run_encrypted(check_ref=...) decrypts every TLU output and counts
-    mismatches vs the clear simulator (the realized-slip audit used by the
-    measured full-image run).  Under drop_policy='none' the bit-exact
+    mismatches vs the clear simulator (the realized-slip audit of
+    ``--slip_audit``).  Under drop_policy='none' the bit-exact
     contract holds, so the realized slip count must be exactly zero and
     the realigned execute output must still equal the simulator's."""
     params, state = tiny_model
@@ -172,8 +172,8 @@ def test_fs8_ingest_execute_matches_simulate():
     '64_6_32'-shaped stem (1x1 conv, no relu1) + residual block, compiled
     and EXECUTED == simulated bit-exactly (reference README.md:88 row;
     topology per run_homomorphic_eval.sh's ResNet-18 CIFAR preset)."""
-    from dct_cryptonets_tpu.data.codec import CodecConfig, dct_ingest
-    from dct_cryptonets_tpu.models import calibrate_scales
+    from dct_cryptonets.data.codec import CodecConfig, dct_ingest
+    from dct_cryptonets.models import calibrate_scales
 
     cfg = CodecConfig(channels=6, filter_size=8, image_size_dct=4)
     rng = np.random.default_rng(9)
@@ -244,8 +244,8 @@ TINY2 = ModelSpec(
 
 @pytest.mark.slow
 def test_rescale_execute_matches_simulate():
-    from dct_cryptonets_tpu.models import calibrate_scales
-    from dct_cryptonets_tpu.fhe.circuit import Rescale
+    from dct_cryptonets.models import calibrate_scales
+    from dct_cryptonets.fhe.circuit import Rescale
 
     params, state = init_model(jax.random.key(4), TINY2)
     x = jax.random.normal(jax.random.key(5), (8, 4, 4, 3))

@@ -4,14 +4,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from dct_cryptonets_tpu.models import (build_spec, calibrate_scales, forward,
+from dct_cryptonets.models import (build_spec, calibrate_scales, forward,
                                        init_model)
-from dct_cryptonets_tpu.models.resnet import ModelSpec
-from dct_cryptonets_tpu.models.topology import StemSpec
-from dct_cryptonets_tpu.fhe.compiler import lower
-from dct_cryptonets_tpu.fhe.circuit import Tlu, simulate
-from dct_cryptonets_tpu.fhe.params import TEST_PARAMS
-from dct_cryptonets_tpu.fhe.runtime import compile_qat_model
+from dct_cryptonets.models.resnet import ModelSpec
+from dct_cryptonets.models.topology import StemSpec
+from dct_cryptonets.fhe.compiler import lower
+from dct_cryptonets.fhe.circuit import Tlu, simulate
+from dct_cryptonets.fhe.params import TEST_PARAMS
+from dct_cryptonets.fhe.runtime import compile_qat_model
 
 # small custom topology exercising the conv7/s2 + maxpool3/s2 stem shape
 # (kept tiny: the execute test's wall time is ~linear in PBS sites on the

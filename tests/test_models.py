@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dct_cryptonets_tpu.models import build_spec, init_model, forward
+from dct_cryptonets.models import build_spec, init_model, forward
 
 
 @pytest.mark.parametrize("name,in_ch,img,feat", [

@@ -6,8 +6,8 @@ proves the framework's multi-host story without hardware: two processes
 (one per emulated host, 4 virtual chips each) join a coordinator, build
 the ('host', 'chip') mesh, run one data-parallel sharded train step whose
 gradient all-reduce crosses the process boundary, and one sharded
-encrypted bootstrap batch with replicated server keys — the exact sharding
-layout a v5p pod slice uses (BASELINE.md >=80% 2-host efficiency claim).
+encrypted bootstrap batch with replicated server keys — the sharding
+layout a multi-host fleet uses.
 """
 import os
 import socket

@@ -3,9 +3,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from dct_cryptonets_tpu.data.codec import CodecConfig, dct_from_pixels
-from dct_cryptonets_tpu.data import native
-from dct_cryptonets_tpu.ops.dct import blockwise_dct2
+from dct_cryptonets.data.codec import CodecConfig, dct_from_pixels
+from dct_cryptonets.data import native
+from dct_cryptonets.ops.dct import blockwise_dct2
 
 pytestmark = pytest.mark.skipif(not native.native_available(),
                                 reason="native codec not built")

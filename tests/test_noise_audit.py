@@ -4,12 +4,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dct_cryptonets_tpu.fhe.compiler import (lower, unify_multipliers,
+from dct_cryptonets.fhe.compiler import (lower, unify_multipliers,
                                              unify_multipliers_pc)
-from dct_cryptonets_tpu.fhe.circuit import AddScaled, AddScaledPC, Tlu
-from dct_cryptonets_tpu.fhe.noise_audit import MAX_DROP, audit_circuit
-from dct_cryptonets_tpu.fhe.params import params_for_precision
-from dct_cryptonets_tpu.models import (build_spec, calibrate_scales, forward,
+from dct_cryptonets.fhe.circuit import AddScaled, AddScaledPC, Tlu
+from dct_cryptonets.fhe.noise_audit import MAX_DROP, audit_circuit
+from dct_cryptonets.fhe.params import params_for_precision
+from dct_cryptonets.models import (build_spec, calibrate_scales, forward,
                                        init_model)
 
 
@@ -138,7 +138,7 @@ class TestNoiseAudit:
         # with the base-2^15 gadget the audit affords aggressive drops
         # (median 2 under the mask-perturbation-corrected drop model —
         # dropped BSK mask bytes convolve with the GLWE key at decryption,
-        # a ~kN/2 variance factor validated on-chip,
+        # a ~kN/2 variance factor validated by measurement,
         # tools/measure_drop_noise.py)
         assert res.aux_drop_limbs >= 2
         assert np.median([r.drop_limbs for r in res.reports]) >= 2
@@ -201,10 +201,10 @@ class TestNoiseAudit:
 
 def test_audit_policy_runtime_wiring():
     """compile(..., drop_policy='audit') picks audited drops at keygen."""
-    from dct_cryptonets_tpu.fhe.runtime import compile_qat_model
-    from dct_cryptonets_tpu.fhe.params import TEST_PARAMS
-    from dct_cryptonets_tpu.models.resnet import ModelSpec
-    from dct_cryptonets_tpu.models.topology import StemSpec
+    from dct_cryptonets.fhe.runtime import compile_qat_model
+    from dct_cryptonets.fhe.params import TEST_PARAMS
+    from dct_cryptonets.models.resnet import ModelSpec
+    from dct_cryptonets.models.topology import StemSpec
 
     spec = ModelSpec(name="tinyqat", block_counts=(1,), widths=(4,),
                      in_channels=3, img_size=8, num_classes=4, bit_width=3,

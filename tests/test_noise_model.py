@@ -3,13 +3,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from dct_cryptonets_tpu.fhe.circuit import simulate, simulate_noisy
-from dct_cryptonets_tpu.fhe.compiler import lower
+from dct_cryptonets.fhe.circuit import simulate, simulate_noisy
+from dct_cryptonets.fhe.compiler import lower
 
 
 def _tiny():
     from tests.test_fhe_e2e import TINY
-    from dct_cryptonets_tpu.models import init_model, forward, calibrate_scales
+    from dct_cryptonets.models import init_model, forward, calibrate_scales
     params, state = init_model(jax.random.key(0), TINY)
     x8 = jax.random.normal(jax.random.key(1), (8, 4, 4, 3))
     _, _, state = forward(params, state, x8, TINY, train=True)

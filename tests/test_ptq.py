@@ -6,13 +6,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from dct_cryptonets_tpu.models import (build_spec, forward, init_model,
+from dct_cryptonets.models import (build_spec, forward, init_model,
                                        quantize_float_model)
-from dct_cryptonets_tpu.models.resnet import ModelSpec
-from dct_cryptonets_tpu.models.topology import StemSpec
-from dct_cryptonets_tpu.fhe.circuit import Tlu, simulate
-from dct_cryptonets_tpu.fhe.params import TEST_PARAMS
-from dct_cryptonets_tpu.fhe.runtime import compile_ptq_model
+from dct_cryptonets.models.resnet import ModelSpec
+from dct_cryptonets.models.topology import StemSpec
+from dct_cryptonets.fhe.circuit import Tlu, simulate
+from dct_cryptonets.fhe.params import TEST_PARAMS
+from dct_cryptonets.fhe.runtime import compile_ptq_model
 
 TINY_F = ModelSpec(
     name="tiny", block_counts=(1,), widths=(4,), in_channels=3,

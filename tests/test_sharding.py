@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dct_cryptonets_tpu.parallel import data_mesh, replicate, shard_batch
+from dct_cryptonets.parallel import data_mesh, replicate, shard_batch
 
 
 def test_mesh_has_8_devices():
@@ -51,10 +51,10 @@ def test_shard_batch_places_on_devices():
 def test_sharded_pbs_batch():
     """Ciphertext batches are embarrassingly parallel: a sharded bootstrap
     call must produce the same results as the unsharded one."""
-    from dct_cryptonets_tpu.fhe import torus as T
-    from dct_cryptonets_tpu.fhe import pbs as P
-    from dct_cryptonets_tpu.fhe import keys as K
-    from dct_cryptonets_tpu.fhe.params import TEST_PARAMS
+    from dct_cryptonets.fhe import torus as T
+    from dct_cryptonets.fhe import pbs as P
+    from dct_cryptonets.fhe import keys as K
+    from dct_cryptonets.fhe.params import TEST_PARAMS
 
     ck = K.keygen(TEST_PARAMS, seed=0)
     sk = K.make_server_keys(ck, seed=1)
@@ -88,11 +88,11 @@ def test_module_level_sharded_execute():
     """CompiledModule.forward(fhe='execute', mesh=...) with replicated keys
     and a sharded ciphertext batch matches the unsharded run bit-exactly."""
     import jax
-    from dct_cryptonets_tpu.models import init_model, calibrate_scales
-    from dct_cryptonets_tpu.models.resnet import ModelSpec, forward
-    from dct_cryptonets_tpu.models.topology import StemSpec
-    from dct_cryptonets_tpu.fhe.runtime import compile_qat_model
-    from dct_cryptonets_tpu.fhe.params import TEST_PARAMS
+    from dct_cryptonets.models import init_model, calibrate_scales
+    from dct_cryptonets.models.resnet import ModelSpec, forward
+    from dct_cryptonets.models.topology import StemSpec
+    from dct_cryptonets.fhe.runtime import compile_qat_model
+    from dct_cryptonets.fhe.params import TEST_PARAMS
 
     tiny = ModelSpec(
         name="tinyqat", block_counts=(1,), widths=(4,), in_channels=3,
@@ -112,7 +112,7 @@ def test_module_level_sharded_execute():
                                calib_absmax=2.0, tfhe_params=TEST_PARAMS,
                                pbs_batch=512)
     module.keygen(seed=6)
-    from dct_cryptonets_tpu.fhe.keys import Csprng
+    from dct_cryptonets.fhe.keys import Csprng
     # identical masks for both runs: the sharded-vs-unsharded contract is
     # about the SERVER computation, so fix the client encryption stream
     ref = module.forward(xq, fhe="execute", enc_rng=Csprng(7))

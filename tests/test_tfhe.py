@@ -1,16 +1,16 @@
 """TFHE primitive tests: encrypt/decrypt, blind rotate, keyswitch, full PBS.
 
 Uses TEST_PARAMS (tiny, insecure) so the O(n * N^2) reference-exact path runs
-in seconds on the 2-vCPU sandbox.
+in seconds on a CPU.
 """
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dct_cryptonets_tpu.fhe import torus as T
-from dct_cryptonets_tpu.fhe.params import TEST_PARAMS, NoiseModel, params_for_precision
-from dct_cryptonets_tpu.fhe import keys as K
-from dct_cryptonets_tpu.fhe import pbs as P
+from dct_cryptonets.fhe import torus as T
+from dct_cryptonets.fhe.params import TEST_PARAMS, NoiseModel, params_for_precision
+from dct_cryptonets.fhe import keys as K
+from dct_cryptonets.fhe import pbs as P
 
 U64 = np.uint64
 PAR = TEST_PARAMS
@@ -71,8 +71,7 @@ def test_external_product_selects(material):
     pt = (PAR.pbs_base_log, PAR.pbs_levels, k, N)
     diff = T.from_u64(glwe[None])                     # (1, k+1, N)
     for i, bit in [(0, int(ck.lwe_key[0])), (1, int(ck.lwe_key[1]))]:
-        kern = P.expand_bsk_kernel(dsk.bsk_bytes[i], k, PAR.pbs_levels, N, 0)
-        out = P.external_product_step(diff, kern, pt, 0)
+        out = P.external_product_step(diff, dsk.bsk_bytes[i], pt, 0)
         res = T.to_u64(out)[0]
         phase = K.decrypt_glwe(ck, res)
         got = decode(phase, 4)

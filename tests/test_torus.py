@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from dct_cryptonets_tpu.fhe import torus as T
+from dct_cryptonets.fhe import torus as T
 
 
 RNG = np.random.default_rng(7)
@@ -77,7 +77,7 @@ def test_decompose_recompose_close():
 
 
 def test_signed_byte_split():
-    from dct_cryptonets_tpu.fhe.pbs import signed_byte_split
+    from dct_cryptonets.fhe.pbs import signed_byte_split
     d = RNG.integers(-(2 ** 22), 2 ** 22, (1000,)).astype(np.int32)
     b = np.asarray(signed_byte_split(jnp.asarray(d), 3)).astype(np.int64)
     rec = b[0] + b[1] * 256 + b[2] * 256 ** 2

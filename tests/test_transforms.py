@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dct_cryptonets_tpu.data import transforms as tr
+from dct_cryptonets.data import transforms as tr
 
 
 def _np_warp(img: np.ndarray, inv: np.ndarray, fill=0.0) -> np.ndarray:
@@ -198,7 +198,7 @@ class TestRgbIngest:
     Resize 1.15x + CenterCrop for aug=False; Normalize both)."""
 
     def test_train_aug_changes_batch_eval_does_not(self):
-        from dct_cryptonets_tpu.data.codec import rgb_ingest, rgb_ingest_train
+        from dct_cryptonets.data.codec import rgb_ingest, rgb_ingest_train
         rng = np.random.default_rng(3)
         imgs = rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8)
         e1 = np.asarray(rgb_ingest(jnp.asarray(imgs), 32))
@@ -213,7 +213,7 @@ class TestRgbIngest:
         assert not np.array_equal(t1, t2)              # key-dependent
 
     def test_normalization_stats_per_dataset(self):
-        from dct_cryptonets_tpu.data.codec import RGB_STATS, rgb_normalize
+        from dct_cryptonets.data.codec import RGB_STATS, rgb_normalize
         x = jnp.full((1, 2, 2, 3), 128.0)
         for name in ("cifar10", "imagenet"):
             mean, std = RGB_STATS.get(name, RGB_STATS["default"])
@@ -222,6 +222,6 @@ class TestRgbIngest:
             np.testing.assert_allclose(got, want, rtol=1e-6)
 
     def test_jitter_strength_follows_reference(self):
-        from dct_cryptonets_tpu.data.codec import rgb_jitter_param
+        from dct_cryptonets.data.codec import rgb_jitter_param
         assert rgb_jitter_param("cifar10") == 0.1   # homomorphic_eval.py:108
         assert rgb_jitter_param("Imagenet") == 0.4  # datamgr.py:38-42 default

@@ -23,12 +23,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     import jax.numpy as jnp
-    from dct_cryptonets_tpu.fhe import torus as T
-    from dct_cryptonets_tpu.fhe.keys import (encrypt_lwe, keygen,
+    from dct_cryptonets.fhe import torus as T
+    from dct_cryptonets.fhe.keys import (encrypt_lwe, keygen,
                                              make_aux_server_keys)
-    from dct_cryptonets_tpu.fhe.params import (default_exact_rounding,
+    from dct_cryptonets.fhe.params import (default_exact_rounding,
                                                params_for_precision)
-    from dct_cryptonets_tpu.fhe.pbs import clear_low_bits, preprocess_aux_keys
+    from dct_cryptonets.fhe.pbs import clear_low_bits, preprocess_aux_keys
 
     M = int(os.environ.get("BENCH_M", 2048))
     shift = int(os.environ.get("BENCH_SHIFT", 4))
@@ -49,7 +49,7 @@ def main():
     ck = keygen(params, seed=0)
     if os.path.exists(cache):
         z = np.load(cache)
-        from dct_cryptonets_tpu.fhe.keys import AuxServerKeyMaterial
+        from dct_cryptonets.fhe.keys import AuxServerKeyMaterial
         ak = AuxServerKeyMaterial(cfg.aux, cfg.back_base_log,
                                   cfg.back_levels, z["bsk"], z["ksk_fwd"],
                                   z["ksk_back"])

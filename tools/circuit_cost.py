@@ -31,13 +31,13 @@ def main():
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from dct_cryptonets_tpu.data import CodecConfig, dct_ingest
-    from dct_cryptonets_tpu.data.pipeline import load_synthetic
-    from dct_cryptonets_tpu.models import (build_spec, calibrate_scales,
+    from dct_cryptonets.data import CodecConfig, dct_ingest
+    from dct_cryptonets.data.pipeline import load_synthetic
+    from dct_cryptonets.models import (build_spec, calibrate_scales,
                                            forward, init_model)
-    from dct_cryptonets_tpu.fhe.compiler import lower
-    from dct_cryptonets_tpu.fhe.circuit import Tlu
-    from dct_cryptonets_tpu.fhe.params import (default_exact_rounding,
+    from dct_cryptonets.fhe.compiler import lower
+    from dct_cryptonets.fhe.circuit import Tlu
+    from dct_cryptonets.fhe.params import (default_exact_rounding,
                                                params_for_precision)
 
     cfg = CodecConfig(channels=args.channels, filter_size=4,

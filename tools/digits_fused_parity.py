@@ -1,16 +1,15 @@
 #!/usr/bin/env python
 """Accuracy parity of the requant-elided (fused) circuit on a TRAINED model.
 
-Trains the flagship topology (ResNet20qat, DCT 24x16^2) on the sklearn
-digits dataset (the only real image data available offline — ROUND1.md
-reached 96.1% test top-1 with it), then compares clear QAT accuracy vs the
+Trains the flagship topology (ResNet20qat, DCT 24x16^2) on the UCI
+digits dataset (real image data that needs no download), then compares clear QAT accuracy vs the
 integer simulator in BOTH residual modes.  The elided circuit keeps full
 accumulator resolution into the residual adds, so its accuracy should be
 at parity or better with the reference-literal requant circuit — this is
 the experimental evidence behind residual_mode='fused' being the default.
 
 Usage: python tools/digits_fused_parity.py [--epochs 30]
-Writes a summary line to stdout; run on either backend (TPU faster).
+Writes a summary line to stdout; runs on the GPU or the CPU.
 """
 import argparse
 import os
@@ -32,12 +31,12 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from dct_cryptonets_tpu import train as tr
-    from dct_cryptonets_tpu.data import CodecConfig, dct_ingest
-    from dct_cryptonets_tpu.data.pipeline import load_digits_dataset
-    from dct_cryptonets_tpu.fhe.compiler import lower
-    from dct_cryptonets_tpu.fhe.circuit import simulate
-    from dct_cryptonets_tpu.models import forward
+    from dct_cryptonets import train as tr
+    from dct_cryptonets.data import CodecConfig, dct_ingest
+    from dct_cryptonets.data.pipeline import load_digits_dataset
+    from dct_cryptonets.fhe.compiler import lower
+    from dct_cryptonets.fhe.circuit import simulate
+    from dct_cryptonets.models import forward
 
     t0 = time.time()
     argv = ["--dataset", "digits", "--dct_status", "--model", "ResNet20qat",
@@ -50,7 +49,7 @@ def main():
 
     ck = tr.load_ckpt("/tmp/digits_fused_parity/best.tar")
     params, state = ck["state"]
-    from dct_cryptonets_tpu.models import build_spec
+    from dct_cryptonets.models import build_spec
     spec = build_spec("ResNet20qat", in_channels=24, img_size=16,
                       num_classes=10, bit_width=4)
 

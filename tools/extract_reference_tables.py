@@ -10,7 +10,7 @@ The reference (zhiyongggggg/dct-cryptonets) hard-codes two kinds of pure data:
 These are *data*, not code: training/eval parity requires the identical channel
 selections and normalization constants.  We extract them with an AST walk (no
 import of the reference, no code copied) and store them as JSON under
-dct_cryptonets_tpu/data/tables/.  Re-run this script to regenerate.
+dct_cryptonets/data/tables/.  Re-run this script to regenerate.
 """
 import ast
 import json
@@ -18,7 +18,7 @@ import os
 import sys
 
 REF = "/root/reference/dct-cryptonets/data"
-OUT = os.path.join(os.path.dirname(__file__), "..", "dct_cryptonets_tpu", "data", "tables")
+OUT = os.path.join(os.path.dirname(__file__), "..", "dct_cryptonets", "data", "tables")
 
 WANT_CVT = [
     "subset_channel_index",

@@ -5,7 +5,7 @@ Equivalent of the reference ``data/make_miniImageNet_json.py`` (113 lines):
 reads Ravi/Larochelle-style CSVs (``filename,label``) and emits
 ``{base,val,novel}.json`` manifests with ``label_names`` / ``image_names`` /
 ``image_labels`` keys consumable by
-``dct_cryptonets_tpu.data.pipeline.load_json_manifest``.
+``dct_cryptonets.data.pipeline.load_json_manifest``.
 
 Usage:
   python tools/make_miniimagenet_json.py --csv_dir <dir with train/val/test.csv> \

@@ -4,16 +4,18 @@
 A CONSTANT test polynomial makes window slips invisible, so the decrypted
 phase residual is exactly the blind-rotate output noise — the quantity
 NoiseModel.var_blind_rotate / var_drop_limbs / var_drop_cross predict.
-Run on the real TPU with cached bench keys.  Measurements recorded in the
-model docstrings (fhe/params.py) came from this tool.
+Run on the accelerator with cached bench keys (``python
+tools/measure_drop_noise.py``).  The arithmetic is exact, so the measured
+noise does not depend on the device; the measurements recorded in the model
+docstrings (fhe/params.py) came from this tool.
 """
 import sys
 sys.path.insert(0, __import__("os").path.dirname(__import__("os").path.dirname(__import__("os").path.abspath(__file__))))
 import numpy as np, jax.numpy as jnp
-from dct_cryptonets_tpu.fhe import torus as T
-from dct_cryptonets_tpu.fhe.keys import encrypt_lwe, decrypt_lwe
-from dct_cryptonets_tpu.fhe.params import params_for_precision, NoiseModel
-from dct_cryptonets_tpu.fhe.pbs import bootstrap
+from dct_cryptonets.fhe import torus as T
+from dct_cryptonets.fhe.keys import encrypt_lwe, decrypt_lwe
+from dct_cryptonets.fhe.params import params_for_precision, NoiseModel
+from dct_cryptonets.fhe.pbs import bootstrap
 import importlib.util
 spec = importlib.util.spec_from_file_location("bench", __import__("os").path.join(__import__("os").path.dirname(__import__("os").path.dirname(__import__("os").path.abspath(__file__))), "bench.py"))
 bench = importlib.util.module_from_spec(spec); spec.loader.exec_module(bench)
